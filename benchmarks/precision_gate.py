@@ -1,15 +1,15 @@
-"""On-chip precision gate at BAL-1778 scale (round-2 verdict #3).
+"""On-card precision gate at BAL-1778 scale.
 
 BASELINE.json acceptance: final-cost parity with the (f64, jet.h
 end-to-end) reference within Ceres' default function_tolerance (1e-6).
 The CPU gate in tests/test_precision_gate.py proves the math at toy
-scale; this script proves it ON THE CHIP at benchmark scale, where
-CPU-f32 simulation is not the same thing (different fusion, real bf16
-MXU passes, the Pallas kernel actually runs).
+scale; this script proves it on the GPU at benchmark scale, where
+CPU-f32 simulation is not the same thing (different fusion, cuBLAS and
+cuSOLVER calls, bf16 matvec operands).
 
 Protocol (solution quality, not trajectory noise):
   1. solve the synthetic BAL-1778 problem to CONVERGENCE
-     (function_tolerance = 1e-6, the Ceres default) on the TPU in f32,
+     (function_tolerance = 1e-6, the Ceres default) on the GPU in f32,
      and again with use_mixed_precision_solves (bf16 PCG matvecs);
   2. solve the IDENTICAL problem to convergence in f64 on local CPU;
   3. re-evaluate EVERY final solution's cost in f64 on CPU (the solver's
@@ -18,8 +18,8 @@ Protocol (solution quality, not trajectory noise):
      solution quality);
   4. gate |cost64(x_f32) - cost64(x_f64)| / cost64(x_f64) <= 1e-6.
 
-Emits one JSON line per path; exit 0 iff every f32 path passes.
-Results are recorded in BASELINE.md ("Precision gate" section).
+Emits one JSON line per path; exit 0 iff every f32 path passes. Needs a
+GPU: `python benchmarks/precision_gate.py` (SCALE=<fraction> shrinks it).
 """
 
 import json
@@ -29,19 +29,14 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.92")
-
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-
 import jax.numpy as jnp
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+from ceres_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 FUNCTION_TOLERANCE = 1e-6
 
@@ -116,12 +111,10 @@ def f64_reference(state_out):
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 import sys, json
 sys.path.insert(0, {REPO!r}); sys.path.insert(0, {REPO!r} + "/benchmarks")
-import precision_gate_tpu as g
+import precision_gate as g
+g.enable_compile_cache()
 import jax.numpy as jnp
 s, dt = g.solve_here(jnp.float64, False, state_out={state_out!r})
 print("OUT " + json.dumps({{"final": s.final_cost, "s": dt,
@@ -136,13 +129,11 @@ def f64_eval_cost(state_file):
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 import sys, json
 import numpy as np
 sys.path.insert(0, {REPO!r}); sys.path.insert(0, {REPO!r} + "/benchmarks")
-import precision_gate_tpu as g
+import precision_gate as g
+g.enable_compile_cache()
 problem = g._build()
 program = problem.compile()
 ev = program.evaluator()
@@ -156,7 +147,7 @@ print("OUT " + json.dumps({{"cost": c}}))
 
 def f64_polish(state_file):
     """Short f64 CPU polish from a saved state: the production recipe's
-    second stage (fast f32 on-chip to the noise plateau, then a few f64
+    second stage (fast f32 on the card to the noise plateau, then a few f64
     LM iterations — the same mixed-precision strategy the reference uses
     for its linear solves, dense_cholesky.h:246/iterative_refiner.cc,
     lifted to the whole solve). Returns the polished f64 cost + iters."""
@@ -164,13 +155,11 @@ def f64_polish(state_file):
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 import sys, json, time
 import numpy as np
 sys.path.insert(0, {REPO!r}); sys.path.insert(0, {REPO!r} + "/benchmarks")
-import precision_gate_tpu as g
+import precision_gate as g
+g.enable_compile_cache()
 import ceres_tpu
 from ceres_tpu.types import LinearSolverType, PreconditionerType, SolverOptions
 problem = g._build()
@@ -192,10 +181,13 @@ print("OUT " + json.dumps({{"cost": s.final_cost, "s": time.time()-t0,
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"precision_gate.py needs a GPU; JAX found {dev.platform}")
+    enable_compile_cache()
     tmp = tempfile.mkdtemp(prefix="pg_")
     # PG_REF_STATE: reuse a pre-computed f64 reference solution (lets the
-    # CPU-only reference run concurrently with other TPU work)
+    # CPU-only reference run concurrently with other GPU work)
     pre = os.environ.get("PG_REF_STATE")
     if pre and os.path.exists(pre):
         ref_state = pre
@@ -218,16 +210,16 @@ def main():
         gap = abs(cost64 - cost64_ref) / max(abs(cost64_ref), 1e-300)
         passed_raw = gap <= FUNCTION_TOLERANCE
         # Production recipe: the pure-f32 solve plateaus at the f32
-        # evaluation noise floor (~3e-5 relative at 5M observations); a
-        # short f64 polish from that point reaches the f64 optimum.
+        # evaluation noise floor; a short f64 polish from that point
+        # reaches the f64 optimum.
         polish = f64_polish(state_file)
         gap_p = abs(polish["cost"] - cost64_ref) / max(abs(cost64_ref), 1e-300)
         passed = gap_p <= FUNCTION_TOLERANCE
         ok &= passed
         print(json.dumps({
             "path": "f32+bf16" if mixed else "f32",
-            "platform": jax.default_backend(),
-            "on_tpu": on_tpu,
+            "platform": dev.platform,
+            "device_kind": dev.device_kind,
             "solver_reported_cost": s.final_cost,
             "cost64_of_solution": cost64,
             "rel_gap_vs_f64": gap,

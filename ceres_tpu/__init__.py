@@ -1,6 +1,6 @@
-"""ceres_tpu — a TPU-native nonlinear least-squares framework.
+"""ceres_tpu — a JAX nonlinear least-squares framework.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of the
+Built from scratch in JAX/XLA with the capability surface of the
 reference system (Ceres Solver + jwmak's GPU-parallel cost-function
 evaluation layer; see SURVEY.md). Not a port: residual blocks batch by
 signature into vmapped XLA evaluations, Jacobians stay matrix-free on

@@ -182,7 +182,7 @@ def numeric_diff(
 class CostFunction:
     """A residual functor with a static residual count.
 
-    The TPU analog of AutoDiffCostFunction (autodiff_cost_function.h): the
+    The analog of AutoDiffCostFunction (autodiff_cost_function.h): the
     user writes one JAX function; grouping by (fn, sizes, loss, manifolds)
     batches all blocks sharing it into a single compiled evaluation — the
     same role type-bucketing plays in the reference

@@ -5,7 +5,7 @@ minimal C surface — init, stock loss functions, problem create/free,
 add_residual_block with a user C callback that fills residuals and
 (optionally) analytic jacobians, and solve with default options.
 
-TPU-native shape: the C callback is a host function, so it enters the JAX
+Shape: the C callback is a host function, so it enters the JAX
 graph through `jax.pure_callback` (one host call per residual block per
 evaluation — the reference's C path likewise runs user callbacks on the
 CPU); its analytic jacobians feed a custom_jvp so the rest of the pipeline
@@ -18,21 +18,10 @@ user-owned-storage contract (c_api.cc ceres_solve).
 from __future__ import annotations
 
 import ctypes
-import os
-
-import numpy as np
 
 import jax
-
-if os.environ.get("CERES_TPU_C_API") == "1":
-    # Under the C embedding shim: the C cost/loss callbacks are host
-    # functions (pure_callback), which some accelerator transports do not
-    # support — run on CPU unless CERES_TPU_C_API_PLATFORM overrides.
-    jax.config.update(
-        "jax_platforms", os.environ.get("CERES_TPU_C_API_PLATFORM") or "cpu"
-    )
-
 import jax.numpy as jnp
+import numpy as np
 
 from .autodiff import CostFunction
 from .loss import (

@@ -1,7 +1,7 @@
 """Checkpoint / resume of solver state.
 
 The reference has none (optimization state lives in user arrays; re-calling
-Solve resumes — SURVEY.md §5). Multi-host TPU runs make restarts expensive,
+Solve resumes — SURVEY.md §5). Long multi-device runs make restarts expensive,
 so this module adds real checkpointing: parameter state + trust-region
 radius + iteration counters, saved atomically as .npz. A callback is
 provided for periodic saving during long solves, and `solve` options can

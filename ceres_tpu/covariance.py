@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .types import CovarianceAlgorithmType
+from .utils.dtypes import full_f32_matmuls
 
 
 @dataclasses.dataclass
@@ -65,6 +66,7 @@ class Covariance:
         self._cov = None  # dense tangent-space covariance
         self._program = None
 
+    @full_f32_matmuls
     def compute(self, covariance_blocks: Sequence[tuple], problem) -> bool:
         """Compute covariance for the given (block_i, block_j) pairs.
 
@@ -170,7 +172,7 @@ class Covariance:
         solve (J^T J) X = E for all requested tangent columns at once by
         vmapping one PCG over the RHS columns — J is never materialized,
         nothing leaves the device until the single result fetch, and the
-        whole column batch is one device program (the TPU answer to the
+        whole column batch is one device program (in place of the
         reference's ThreadPool over columns).
 
         Failure semantics: the tolerance is floored at a multiple of the

@@ -1,6 +1,6 @@
 """Batched residual / Jacobian / gradient / cost evaluation.
 
-TPU-native counterpart of the reference evaluation layer:
+Counterpart of the reference evaluation layer:
 - ProgramEvaluator's ParallelFor over residual blocks
   (internal/ceres/program_evaluator.h:185-257) and the jwmak CUDA
   thread-per-block EvaluateKernel
@@ -23,7 +23,6 @@ only ever consumed by further psum-reduced products — see jacobian.py).
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import jax
@@ -32,14 +31,8 @@ import jax.numpy as jnp
 from .autodiff import batched_value_and_jacobians, batched_values
 from .corrector import correct_batched
 from .jacobian import BlockJacobian
-from .utils.dtypes import default_dtype
+from .utils.dtypes import default_dtype, full_f32_matmuls
 
-
-# Pre-kernel parameter gathers: classes up to this many rows use the
-# two-level one-hot MXU gather; larger ones fall back to the chunked row
-# gather (the one-hot's 2*s*cnt*n FLOPs cross the gather's cost ~here on
-# v5e).
-EVAL_GATHER_ONEHOT_MAX = 4096
 
 # ---------------------------------------------------------------------- #
 # pure functions over (program-meta, arrays)
@@ -116,28 +109,13 @@ def _group_eval(
     """Evaluate one signature group. Returns (cost, res [r,n], jacs tuple of
     [r*t, n]) in the transposed SoA layout (see jacobian.py).
 
-    Groups larger than LANE_CHUNK evaluate in lane slices (XLA's fusion
-    temporaries for the batched pushforwards scale with the slice size —
-    unchunked, a 29M-observation group needs >27 GB of temps; measured OOM
-    on 16 GB v5e). Cost/residual/Jacobian results are concatenated; the
-    math is identical.
+    Groups larger than LANE_CHUNK evaluate in lane slices: XLA's fusion
+    temporaries for the batched pushforwards scale with the slice size.
+    Cost/residual/Jacobian results are concatenated; the math is identical.
     """
-    from .jacobian import LANE_CHUNK, lane_chunks
+    from .jacobian import lane_chunks
 
     n_total = garr["a_rows"][0].shape[0] if garr["a_rows"] else meta.n
-
-    # Both evaluation modes use the fused kernel when the group is
-    # eligible. The residual-only variant shipped in round 2 without
-    # on-TPU validation (and the first full-scale run wedged the TPU
-    # worker — BENCH_r02 post-mortem); it is now validated on chip by
-    # tests_tpu/ and A/B-measured faster than the XLA path at both
-    # benchmark scales (round 4: 11.6 vs 21.9 ms in-graph at 5M lanes,
-    # 134 vs 142 ms dispatched at 29M), so the quarantine gate is gone.
-    out = _group_eval_pallas(
-        meta, garr, state_2d, apply_loss, axis_name, with_jacobian
-    )
-    if out is not None:
-        return out
 
     ranges = lane_chunks(n_total)
     if len(ranges) == 1:
@@ -160,74 +138,6 @@ def _group_eval(
         for i in range(len(jacss[0]))
     )
     return cost, res, jacs
-
-
-def _group_eval_pallas(meta, garr, state_2d, apply_loss, axis_name,
-                       with_jacobian=True):
-    """Fused Pallas evaluation of a whole signature group (pallas_eval.py)
-    when the group is kernel-eligible; None -> caller uses the XLA path.
-
-    Replaces gather -> batched linearize -> corrector -> transpose with one
-    kernel whose VMEM use is constant in group size (no lane chunking)."""
-    from . import pallas_eval
-    from .jacobian import gather_T
-
-    dtype = state_2d[0].dtype if state_2d else None
-    kernel = pallas_eval.group_kernel(
-        meta, garr, dtype, apply_loss, with_jacobian
-    )
-    if kernel is None:
-        return None
-
-    params_T = []
-    for pos, (pm, rows) in enumerate(zip(meta.positions, garr["a_rows"])):
-        if axis_name is not None:
-            plan = (meta.shard_red_plans or {}).get(pos)
-        else:
-            plan = (meta.red_plans or {}).get(pos)
-        tbl = state_2d[pm.a_cls]
-        if (
-            pos == meta.owner
-            and meta.owner_ambient_aligned
-            and plan is not None
-            and plan[0] in ("bucket", "bucket_sharded")
-        ):
-            params_T.append(gather_T(plan, tbl, rows, axis_name))
-        elif tbl.shape[0] <= EVAL_GATHER_ONEHOT_MAX:
-            # Small class (e.g. BAL-1778 cameras): two-level one-hot
-            # matmul gather on the MXU (jacobian._onehot_gather_rows) —
-            # no [chunk, s] tile-padded materialization at all (measured
-            # 2.8 ms vs 12.6 ms take+transpose at 5M lanes).
-            from .jacobian import _onehot_gather_rows
-
-            params_T.append(_onehot_gather_rows(tbl.T, rows))
-        else:
-            # Large class (BAL-13682 cameras): the one-hot matmul's
-            # O(cnt*n) MXU cost exceeds the tile-padded row gather's; use
-            # the round-1 TPU-proven take+transpose, lane-chunked to bound
-            # the [chunk, s] -> 128-lane padding to ~3 GB per slice.
-            # (Round 2 briefly used an unchunked lane-axis gather
-            # `state.T[:, rows]` here; it was never validated on TPU and
-            # is implicated in the BENCH_r02 worker wedge.)
-            from .jacobian import lane_chunks
-
-            parts = [
-                jnp.take(tbl, rows[s : s + sz], axis=0).T
-                for (s, sz) in lane_chunks(rows.shape[0])
-            ]
-            params_T.append(
-                parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=1)
-            )
-
-    data_T = []
-    for d in garr["data"]:
-        data_T.append(d[None, :] if d.ndim == 1 else d.T)
-
-    mask = garr.get("mask")
-    mask_T = None if mask is None else mask[None, :]
-
-    cost, res_T, jacs_T = kernel(tuple(params_T), tuple(data_T), mask_T)
-    return cost, res_T, jacs_T
 
 
 def _group_eval_range(
@@ -299,8 +209,7 @@ def _group_eval_range(
 
     # outputs in transposed SoA layout (jacobian.py): the [n, r(, t)]
     # intermediates stay fusion-resident; only compact [r, n] / [r*t, n]
-    # tensors are materialized (a row-major [n, small] array would be
-    # TPU-tile-padded up to 42x).
+    # tensors are materialized, with the observation axis minor.
     n, r = res.shape
     res_T = res.T
     jacs_T = tuple(
@@ -416,27 +325,32 @@ class Evaluator:
 
     # -- public API ---------------------------------------------------- #
 
+    @full_f32_matmuls
     def cost(self, state):
         self._notify(False)
         return self._cost(self.arrays, state)
 
+    @full_f32_matmuls
     def residuals(self, state):
         """(cost, flat corrected residuals)."""
         self._notify(False)
         return self._residuals(self.arrays, state)
 
+    @full_f32_matmuls
     def evaluate(self, state, apply_loss: bool = True):
         """(cost, flat residuals, BlockJacobian, gradient)."""
         self._notify(True)
         cost, res_groups, jac, grad = self._evaluate_jac(self.arrays, state, apply_loss)
         return cost, flatten_residuals(self.program, res_groups), jac, grad
 
+    @full_f32_matmuls
     def evaluate_groups(self, state, apply_loss: bool = True):
         """(cost, per-group residual batches, BlockJacobian, gradient) — the
         minimizer-facing form that keeps residuals group-structured."""
         self._notify(True)
         return self._evaluate_jac(self.arrays, state, apply_loss)
 
+    @full_f32_matmuls
     def plus(self, state, delta):
         return self._plus(self.arrays, state, delta)
 

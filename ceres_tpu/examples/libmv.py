@@ -7,7 +7,7 @@ examples/libmv_bundle_adjuster.cc (EUC bundle: angle-axis R|t per view,
 shared 8-parameter intrinsics block with BundleIntrinsics bit flags choosing
 which intrinsics to refine via a subset manifold).
 
-TPU shape: all correspondences/observations are single residual batches, so
+Shape: all correspondences/observations are single residual batches, so
 each evaluation is one vmapped kernel; the shared intrinsics block is a
 high-degree f-block exercising the Schur partition's shared-parameter path.
 """

@@ -1,7 +1,7 @@
 """First-order (general unconstrained) optimization API.
 
 reference: gradient_problem.h, gradient_problem_solver.h/.cc,
-first_order_function.h, autodiff_first_order_function.h. TPU design: the
+first_order_function.h, autodiff_first_order_function.h. Design: the
 user writes one JAX scalar function f(x); jax.value_and_grad supplies the
 gradient (the analog of AutoDiffFirstOrderFunction's Jet evaluation), the
 manifold supplies the retraction, and the shared LineSearchDriver
@@ -19,7 +19,7 @@ import numpy as np
 
 from .manifolds import EuclideanManifold, Manifold
 from .types import MinimizerType, Summary, TerminationType
-from .utils.dtypes import default_dtype
+from .utils.dtypes import default_dtype, full_f32_matmuls
 
 
 class GradientProblem:
@@ -38,6 +38,7 @@ class GradientProblem:
         return self.manifold.tangent_size if self.manifold is not None else self.size
 
 
+@full_f32_matmuls
 def solve_gradient_problem(options, problem: GradientProblem, x0) -> tuple:
     """Minimize; returns (x, Summary). reference: GradientProblemSolver::Solve
     (gradient_problem_solver.cc)."""

@@ -1,31 +1,24 @@
 """BlockJacobian: the matrix-free Jacobian operator in transposed SoA layout.
 
-TPU-native replacement for the reference's materialized sparse Jacobians
+Replacement for the reference's materialized sparse Jacobians
 (BlockSparseMatrix, block_sparse_matrix.cc; CompressedRowSparseMatrix) and
-their CUDA views. Two hardware facts drive the design (measured on v5e at
-5M observations):
-
-1. any materialized [n, small] tensor is tile-padded (minor dim -> 128,
-   second-minor -> 8): f32[5M,2,3] costs 42.7x its logical size;
-2. XLA scatter/segment-sum costs ~230 ms for 5M rows -> 1M segments
-   regardless of sortedness, and row gathers from large tables ~26 ms.
-
-So every per-observation tensor lives TRANSPOSED, minor axis = observation:
-residuals are [r, n], the Jacobian block of one signature position is
-[r*t, n] (second-minor r*t pads to the next multiple of 8 — <= 33%
-overhead — while the n axis tiles perfectly). All products
+their CUDA views. Every per-observation tensor lives TRANSPOSED, minor
+axis = observation: residuals are [r, n], the Jacobian block of one
+signature position is [r*t, n]. All products
 
     J v, J^T u, J^T J v, column norms, per-block Gram blocks
 
-are python-unrolled elementwise ops over [*, n] slices (perfect VPU lane
-utilization), and the gather/scatter problem is solved by layout:
+are python-unrolled elementwise ops over [*, n] slices that XLA fuses into
+single passes over the observation axis, and the gather/scatter problem is
+solved by layout:
 
 - the "owner" position (largest class, e.g. BA points) has its rows in the
   interleaved bucket order (program.py red_plans): gathers become
   slice + broadcast and reductions become reshape + sum — zero gathers,
   zero scatters, bitwise deterministic;
-- small classes (e.g. BA cameras) reduce via one-hot matmuls on the MXU
-  (fused by XLA; ~9 ms for 5M rows -> 1778 blocks);
+- small classes (e.g. BA cameras) gather and reduce via one-hot matmuls
+  (deterministic; on the H100 `take`/`segment_sum` measure ~10x faster,
+  see PERF.md — choosing by backend is a ROADMAP speed item);
 - everything else falls back to jnp.take / segment_sum.
 
 Registered as a JAX pytree; under sharding the leaves are shard-local lane
@@ -49,12 +42,10 @@ import numpy as np
 
 # Lane chunking bounds XLA fusion temporaries and one-hot matmul operands
 # (an [81, n] f32 operand at BAL-13682 scale (29M observations) is 9.4 GB
-# unchunked, and the batched-pushforward fusion temps reach 27 GB —
-# measured OOM on 16 GB v5e; ~0.93 GB of temps per million lanes).
-# Groups up to LANE_CHUNK run single-slice (BAL-1778's 5M observations);
-# larger groups use LANE_CHUNK_LARGE slices, leaving headroom for the
-# resident Jacobian (measured: BAL-13682 fits and evaluates in 649 ms on
-# one v5e with 2M slices).
+# unchunked; the batched-pushforward fusion temporaries take ~0.93 GB per
+# million lanes). Groups up to LANE_CHUNK run single-slice (BAL-1778's 5M
+# observations); larger groups use LANE_CHUNK_LARGE slices. The values
+# were sized for a 16 GB device and are not re-derived for the H100.
 LANE_CHUNK = 6_291_456
 LANE_CHUNK_LARGE = 2_097_152
 
@@ -68,41 +59,34 @@ def lane_chunks(n: int, chunk: int = None):
     return [(s, min(chunk, n - s)) for s in range(0, n, chunk)]
 
 
-# Two-level factorized one-hot (measured on v5e at 5M lanes / 1779 blocks:
-# gather 8.45 -> 2.8 ms, reduce 8.2 -> 2.8 ms (k=2) / 9.6 -> 4.4 ms (k=9)):
-# writing the one-hot as oh[c, n] = oh_hi[c//B, n] * oh_lo[c%B, n] cuts the
-# iota-compare generation from cnt*n to (cnt/B + B)*n VPU ops; the MXU
-# contraction keeps its 2*k*cnt*n FLOPs but runs against the small
-# [A = cnt/B] axis. B=8 is the measured sweet spot for the block sizes
-# (2..16) this framework produces.
+# Two-level factorized one-hot: writing the one-hot as
+# oh[c, n] = oh_hi[c//B, n] * oh_lo[c%B, n] cuts the iota-compare
+# generation from cnt*n to (cnt/B + B)*n ops; the contraction keeps its
+# 2*k*cnt*n FLOPs but runs against the small [A = cnt/B] axis.
 ONEHOT_LO = 8
 
 
-def _onehot_precision(operand_dtype, reduce=False):
-    """MXU precision for the one-hot matmuls standing in for gather/reduce.
+def _onehot_precision(operand_dtype):
+    """Contraction precision for the one-hot matmuls standing in for
+    gather/reduce.
 
-    The TPU's DEFAULT matmul precision truncates f32 operands to bf16 —
-    for a matmul used as a GATHER that silently quantizes the gathered
-    VALUES (~4e-3 relative; caught by tests_tpu/test_differential.py), so
-    f32 gathers use Precision.HIGHEST (exact; measured +~1.7 ms at 5M
-    lanes vs the broken default — benchmarks/onehot_precision.py, which
-    also shows HIGHEST beating a 3x-bf16-plane decomposition). REDUCES use
-    Precision.HIGH (bf16_3x): 6.3e-6 max relative element error measured
-    against f64 — below the f32 accumulation noise of the 10^3-term sums
-    these feed, deterministic, and ~20% cheaper than HIGHEST at the
-    BAL-13682 class count where the reduce is ~160 ms of the evaluation.
-    bf16 leaves (mixed-precision solves) keep DEFAULT: they are already
-    quantized by design and the one-hot side is exact in bf16."""
+    On the H100 an f32 contraction at DEFAULT or HIGH precision runs in
+    TF32, which rounds every operand to about 5e-4 relative before the
+    products are summed: for a matmul used as a gather or a reduce that
+    quantizes the gathered values and every gradient / Schur-rhs
+    contribution. So f32 operands use Precision.HIGHEST (exact products
+    with f32 accumulation) for gathers and reduces alike. bf16 leaves
+    (mixed-precision solves) keep DEFAULT: they are quantized by design,
+    the one-hot side is exact in bf16, and the sums accumulate in f32
+    (preferred_element_type)."""
     if operand_dtype == jnp.bfloat16:
         return None
-    if reduce:
-        return jax.lax.Precision.HIGH
     return jax.lax.Precision.HIGHEST
 
 
 def _onehot_gather_rows(table_t, rows):
     """Gather columns of a transposed class table: [s, cnt] x rows [n] ->
-    [s, n], as a two-level one-hot matmul on the MXU (exact — see
+    [s, n], as a two-level one-hot matmul (exact — see
     _onehot_precision)."""
     s, cnt = table_t.shape
     B = ONEHOT_LO
@@ -137,7 +121,7 @@ def _onehot_reduce_rows(contrib, rows, num_out, acc_dtype):
     oh_hi = jax.nn.one_hot(rows_hi, A, dtype=contrib.dtype)  # [n, A]
     out = jnp.einsum(
         "Kn,na->Ka", ctmp, oh_hi, preferred_element_type=acc_dtype,
-        precision=_onehot_precision(contrib.dtype, reduce=True),
+        precision=_onehot_precision(contrib.dtype),
     )  # [k*B, A]
     out = jnp.transpose(out.reshape(k, B, A), (0, 2, 1)).reshape(k, A * B)
     return out[:, :num_out]
@@ -171,20 +155,6 @@ def psum_hierarchical(x, axis_name):
     return jax.lax.psum(x, axis_name)
 
 
-def use_onehot_kernel(plan, n, dtype):
-    """True when the fused Pallas gather/reduce kernels (pallas_onehot.py)
-    should replace the XLA one-hot matmuls for this (plan, size, dtype).
-    Callers additionally skip shard_view jacs: a pallas_call over a
-    GLOBAL sharded array cannot be GSPMD-partitioned."""
-    if plan is None or plan[0] != "onehot":
-        return False
-    if dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    from . import pallas_onehot
-
-    return n >= pallas_onehot.MIN_LANES and pallas_onehot.enabled()
-
-
 def gather_T(plan, table, rows, axis_name=None):
     """Gather class-table rows into transposed form [s, n].
 
@@ -196,8 +166,8 @@ def gather_T(plan, table, rows, axis_name=None):
                shard's real entities land on neighbor rows or the clamped
                table edge — those lanes are masked pads, so any value is
                fine);
-           ("onehot",) -> one-hot matmul on the MXU (avoids the tile-padded
-               [n, s] materialization of an XLA row gather);
+           ("onehot",) -> one-hot matmul (writes the [s, n] result
+               directly, with no [n, s] row gather and transpose);
            otherwise -> jnp.take + transpose.
     """
     if plan is not None and plan[0] == "bucket":
@@ -238,8 +208,7 @@ def gather_T_t(plan, table_t, rows, axis_name=None):
 
     The t-form twin used by the table-vector ("tvec") product path: every
     access is a lane-axis slice/matmul, so no [cnt, s] <-> [s, cnt]
-    transpose ever materializes (a [1M, 3] transpose inside a while_loop
-    costs ~30 ms per iteration on TPU — measured; see linalg/cg.py).
+    transpose materializes inside the PCG while_loop (see linalg/cg.py).
     The dump (constant-block) column of table_t must be zero.
     """
     if plan is not None and plan[0] == "bucket":
@@ -285,12 +254,12 @@ def reduce_T(plan, contrib, rows, num_out, axis_name=None, acc_dtype=None):
           (shard column ranges may abut); output gains SHARD_COL_PAD extra
           columns absorbing trailing-shard overhang — the caller's flatten
           drops them;
-      ("onehot",): one-hot matmul on the MXU (lane-chunked);
+      ("onehot",): one-hot matmul (lane-chunked);
       ("segsum",) / None: transpose + segment_sum.
 
     acc_dtype: accumulation/output dtype (mixed precision: bf16 contribs
-    accumulate in f32 — the MXU natively takes bf16 operands with an f32
-    accumulator; the VPU sums cast up first).
+    accumulate in f32 — contractions take bf16 operands with an f32
+    accumulator; elementwise sums cast up first).
     """
     k = contrib.shape[0]
     acc_dtype = acc_dtype or contrib.dtype
@@ -428,15 +397,14 @@ class BlockJacobian:
         return jnp.float32
 
     def _acc_dtype(self):
-        """Accumulation dtype: bf16 leaves accumulate in f32 (the MXU takes
-        bf16 operands with an f32 accumulator natively)."""
+        """Accumulation dtype: bf16 leaves accumulate in f32."""
         dt = self._dtype()
         return jnp.float32 if dt == jnp.bfloat16 else dt
 
     def astype(self, dtype):
         """Cast the [r*t, n] leaves (mixed-precision solves: bf16 leaves
-        halve the HBM traffic and double the MXU rate of every product;
-        reductions still accumulate in f32). reference analog:
+        halve the memory traffic of every product; reductions still
+        accumulate in f32). reference analog:
         CUDADenseCholeskyMixedPrecision (dense_cholesky.h:246) — fp32
         factorization + fp64 refinement; here fp32 is the outer precision
         and bf16 the inner-product precision, validated by the trust
@@ -542,9 +510,9 @@ class BlockJacobian:
     # preconditioner applies, and CG vector algebra run directly in this
     # form, so the [cnt, s] <-> [s, cnt] class-table transposes — which
     # XLA materializes as physical relayouts on every lax.while_loop
-    # iteration (~30 ms each at BA scale; measured) — happen exactly
-    # twice per linear solve (entry/exit) instead of several times per
-    # PCG iteration. The SURVEY §7 "PCG over a vector protocol" design.
+    # iteration — happen exactly twice per linear solve (entry/exit)
+    # instead of several times per PCG iteration. The SURVEY §7 "PCG over
+    # a vector protocol" design.
 
     def tvec(self, v):
         """flat [num_eff] -> list of per-class [s, cnt+1+pad] tables."""
@@ -607,13 +575,6 @@ class BlockJacobian:
                     continue
                 t = pm.tangent_size
                 plan = self.plan(gi, vpos)
-                if not self.shard_view and use_onehot_kernel(plan, n, leaf_dt):
-                    from .pallas_onehot import gather_contract
-
-                    acc = acc + gather_contract(
-                        jac, tr, tv[pm.t_cls].astype(leaf_dt), r
-                    ).astype(acc_dt)
-                    continue
                 vg = gather_T_t(
                     plan,
                     tv[pm.t_cls].astype(leaf_dt),
@@ -645,13 +606,6 @@ class BlockJacobian:
                     continue
                 t = pm.tangent_size
                 plan = self.plan(gi, vpos)
-                if not self.shard_view and use_onehot_kernel(plan, n, leaf_dt):
-                    from .pallas_onehot import contract_reduce
-
-                    acc[pm.t_cls] = acc[pm.t_cls] + contract_reduce(
-                        jac, tr, u, acc[pm.t_cls].shape[1], r
-                    ).astype(acc_dt)
-                    continue
                 contrib = (jac.reshape(r, t, n) * u[:, None, :]).sum(axis=0)
                 acc[pm.t_cls] = acc[pm.t_cls] + reduce_T(
                     plan,
@@ -686,13 +640,6 @@ class BlockJacobian:
                     continue
                 t = pm.tangent_size
                 plan = self.plan(gi, vpos)
-                if not self.shard_view and use_onehot_kernel(plan, n, leaf_dt):
-                    from .pallas_onehot import gather_contract
-
-                    acc = acc + gather_contract(
-                        jac, tr, vt[pm.t_cls].T.astype(leaf_dt), r
-                    ).astype(acc_dt)
-                    continue
                 vg = gather_T(
                     plan,
                     vt[pm.t_cls].astype(leaf_dt),
@@ -726,13 +673,6 @@ class BlockJacobian:
                 t = pm.tangent_size
                 cnt = self.program.tangent_class_counts[pm.t_cls]
                 plan = self.plan(gi, vpos)
-                if not self.shard_view and use_onehot_kernel(plan, n, leaf_dt):
-                    from .pallas_onehot import contract_reduce
-
-                    acc[pm.t_cls] = acc[pm.t_cls] + contract_reduce(
-                        jac, tr, u, acc[pm.t_cls].shape[1], r
-                    ).astype(acc_dt)
-                    continue
                 contrib = (jac.reshape(r, t, n) * u[:, None, :]).sum(axis=0)
                 acc[pm.t_cls] = acc[pm.t_cls] + reduce_T(
                     plan,

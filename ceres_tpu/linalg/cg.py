@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients, generic over a matvec closure.
 
-TPU-native counterpart of the reference's ConjugateGradientsSolver
+Counterpart of the reference's ConjugateGradientsSolver
 (internal/ceres/conjugate_gradients_solver.h:108-311), which is templated
 over the vector type so one implementation serves Eigen and CUDA vectors.
 Here the same genericity comes for free: vectors are jnp arrays (replicated
@@ -39,7 +39,7 @@ class CGResult(NamedTuple):
 # Vector protocol: every CG vector is a pytree (a flat jnp array, or the
 # per-class transposed-table "tvec" form of jacobian.py — the layout that
 # keeps the whole PCG loop free of physical [cnt, s] <-> [s, cnt]
-# relayouts on TPU). The reference achieves the same genericity by
+# relayouts). The reference achieves the same genericity by
 # templating ConjugateGradientsSolver over the vector type
 # (conjugate_gradients_solver.h:54-60).
 

@@ -5,7 +5,7 @@ the SchurEliminator assembles S into a BlockRandomAccessSparseMatrix with
 one cell per camera pair that shares a point, then a host sparse Cholesky
 factors it.
 
-TPU design: the block sparsity (unique camera pairs per shared point) is
+Design: the block sparsity (unique camera pairs per shared point) is
 planned once on the host from the Program's index tables; per iteration the
 blocks are assembled on device — per-point batched triangular solves
 (E'E + D)^(-1/2) and pair-block einsums, one deterministic segment-sum per

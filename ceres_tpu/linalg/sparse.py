@@ -7,7 +7,7 @@ Those backends are *CPU* libraries in the reference too — the analog here is
 scipy.sparse's SuperLU on the host, consuming the CRS export of the
 device-resident BlockJacobian. Used when the problem has general sparsity
 that neither the dense path (too big) nor Schur (no elimination structure)
-fits; the device-side CGNR path remains the TPU-preferred option.
+fits; the device-side CGNR path remains the device-resident option.
 """
 
 from __future__ import annotations

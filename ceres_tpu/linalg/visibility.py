@@ -9,7 +9,7 @@ Schur complement S to {within-cluster blocks} (CLUSTER_JACOBI) or
 {within-cluster blocks + degree-2-max-spanning-forest edges}
 (CLUSTER_TRIDIAGONAL), and factors the result with CHOLMOD on the host.
 
-TPU-native shape: all *structure* (visibility graph, clustering, forest,
+Shape: all *structure* (visibility graph, clustering, forest,
 pair -> destination routing) is computed once on the host from the Program's
 index tables; all *values* stay on device. Cluster blocks are assembled by
 batched triangular solves + einsums over per-point observation groups and
@@ -17,7 +17,7 @@ one deterministic segment-sum per chunk (the analog of the reference's
 SchurEliminator chunk assembly), giving padded dense per-cluster matrices:
 
   CLUSTER_JACOBI      [n_clusters, L*tf, L*tf] per size bucket -> batched
-                      Cholesky + batched cho_solve (pure MXU work).
+                      Cholesky + batched cho_solve (pure dense device work).
   CLUSTER_TRIDIAGONAL the degree-2 forest is a set of *paths*, so each tree
                       is a block-tridiagonal chain; factorization and solve
                       are lax.scan block-Cholesky sweeps along the chains,

@@ -3,7 +3,7 @@
 Parity with the reference loss family (include/ceres/loss_function.h:87-392,
 internal/ceres/loss_function.cc:44-175), re-designed as frozen dataclasses
 whose `rho(s)` is vectorized over a batch of squared norms `s` (one per
-residual block) — the TPU analog of per-block `LossFunction::Evaluate` calls.
+residual block) — the analog of per-block `LossFunction::Evaluate` calls.
 
 Contract (identical to the reference): rho(s) -> (rho0, rho1, rho2) with
   cost       = 0.5 * rho0

@@ -147,7 +147,7 @@ def _quat_prod(a, b, order):
     """Hamilton product a ⊗ b with index order (w, x, y, z positions).
 
     Built with jnp.stack (not scatter) so the whole product is a handful of
-    fused VPU ops.
+    fused elementwise ops.
     """
     w, x, y, z = order
     out = [None] * 4

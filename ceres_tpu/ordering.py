@@ -3,7 +3,7 @@
 Parity: include/ceres/ordered_groups.h (ParameterBlockOrdering =
 OrderedGroups<double*>, keyed here by parameter-block handles). Group 0 is
 the set Schur-type solvers eliminate first (reorder_program.cc); higher
-groups express "solve later" ordering hints. On TPU the elimination
+groups express "solve later" ordering hints. Here the elimination
 structure is the only part of the ordering that changes the compiled
 program — within-group order is irrelevant to XLA — so groups >= 1 are
 kept for API parity and validation but do not affect layout.

@@ -39,7 +39,6 @@ def initialize(
 ):
     """Join (or auto-detect) a multi-process JAX runtime.
 
-    On TPU pods the three arguments are auto-detected and may be omitted.
     For CPU emulation (tests) pass them explicitly and set
     `platform="cpu"`, `local_device_count=k` to give each process k
     virtual devices (SURVEY §4:537-539 pattern).

@@ -2,7 +2,7 @@
 
 The reference is single-process/single-GPU; its only parallel axis is
 thread/CUDA-thread data parallelism over residual blocks (SURVEY.md §2d).
-The TPU framework's scaling design (BASELINE.json north star): partition
+The framework's scaling design (BASELINE.json north star): partition
 every signature group's residual blocks across the mesh axis, replicate the
 state vector and all tangent-space vectors, and express every reduction the
 reference performs with thrust::reduce / atomicAdd / per-thread scratch as
@@ -30,7 +30,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..evaluator import Evaluator, evaluate
-from ..utils.dtypes import default_dtype
+from ..utils.dtypes import default_dtype, full_f32_matmuls
 
 
 def _pad_rows(a: np.ndarray, target: int, pad_value=0):
@@ -69,7 +69,7 @@ def put_global(mesh: Mesh, spec, leaf_fn, global_shape, dtype):
     Multi-process (jax.process_count() > 1): each process materializes ONLY
     the row blocks its addressable devices own and the global array is
     stitched with jax.make_array_from_single_device_arrays — no process
-    ever holds or transfers the whole leaf. This is the TPU-native answer
+    ever holds or transfers the whole leaf. This is the answer
     to the reference's single-GPU bulk upload (registered_cuda_evaluators
     .cc:239-272) at multi-host scale (SURVEY.md §2d:332-339).
     """
@@ -328,9 +328,11 @@ class ShardedEvaluator(Evaluator):
 
     # -- Evaluator-compatible API -------------------------------------- #
 
+    @full_f32_matmuls
     def cost(self, state):
         return self._cost_sharded(self.arrays, state)
 
+    @full_f32_matmuls
     def evaluate_groups(self, state, apply_loss: bool = True):
         cost, res_groups, (jac_g, t_rows, _), grad = self._evaluate_sharded(
             self.arrays, state
@@ -347,6 +349,7 @@ class ShardedEvaluator(Evaluator):
         )
         return cost, res_groups, jac, grad
 
+    @full_f32_matmuls
     def plus(self, state, delta):
         return self._plus_sharded(self.arrays, state, delta)
 

@@ -2,7 +2,7 @@
 
 Capability parity with the reference Problem/ProblemImpl
 (include/ceres/problem.h, internal/ceres/problem_impl.cc) and ProblemCUDA
-(include/ceres/problem_cuda.h), re-designed TPU-first:
+(include/ceres/problem_cuda.h), re-designed for batched device evaluation:
 
 - residual blocks are added in *batches* (`add_residual_blocks`) with stacked
   per-block data — the natural unit for XLA's static-shape compilation and the
@@ -308,7 +308,7 @@ class Problem:
         self, values, manifold: Optional[Manifold] = None
     ) -> np.ndarray:
         """Bulk-add n blocks of equal size from a [n, size] array; returns
-        their handles. TPU-native extension (no host loop at BA scale)."""
+        their handles. Extension over the reference (no host loop at BA scale)."""
         v = np.asarray(values, dtype=np.float64)
         if v.ndim != 2:
             raise ValueError("add_parameter_blocks expects [n, size]")

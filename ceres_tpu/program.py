@@ -1,6 +1,6 @@
 """Program: the lowered, executable form of a Problem.
 
-TPU-native counterpart of the reference's Program + preprocess step
+Counterpart of the reference's Program + preprocess step
 (internal/ceres/program.cc, registered_cuda_evaluators.cc:226-280 Init): the
 problem is compiled into
 
@@ -89,7 +89,7 @@ class SigGroupMeta:
     #       is a tuple of (lane_start, n_seg, degree, out_row): lanes
     #       [lane_start + j*n_seg + e] hold observation j of class row
     #       out_row + e.
-    #   ("onehot",): reduction as a one-hot matmul on the MXU (small class).
+    #   ("onehot",): reduction as a one-hot matmul (small class).
     #   ("segsum",): generic segment-sum / take fallback.
     red_plans: Optional[dict] = None
     # position that owns the row ordering (has the "bucket" plan), or -1
@@ -124,10 +124,9 @@ class Program:
     SEG_REDUCE_THRESHOLD = 32_768
     MAX_SEG_BUCKETS = 512
     # max one-hot matmul width for small-class reductions (cost is
-    # k * cnt * n MACs on the MXU, lane-chunked so memory stays bounded).
-    # Covers BAL-13682's camera class; the segment_sum fallback's [n, k]
-    # transpose tile-pads 14x (13.8 GB at 29M rows — measured OOM), so the
-    # one-hot path wins far beyond its FLOP-optimal range.
+    # k * cnt * n MACs, lane-chunked so memory stays bounded). Covers
+    # BAL-13682's camera class. On the H100 take/segment_sum measure ~10x
+    # faster (PERF.md); choosing the plan by backend is a ROADMAP item.
     ONEHOT_MAX_COLS = 16384
 
     def __init__(self, blocks, batches, evaluation_callback=None):
@@ -147,10 +146,8 @@ class Program:
         Tangent classes are laid out in (degree, id) order so that rows of a
         large signature group, sorted by the designated reduce position's
         class row, form contiguous equal-degree runs — making J^T-side
-        reductions pure reshape+sum (see _build_groups seg_reduce). XLA's
-        TPU scatter costs ~250 ms for 5M rows -> 1M segments regardless of
-        sortedness (measured), so avoiding scatter entirely is the only
-        fast path.
+        reductions pure reshape+sum (see _build_groups seg_reduce): no
+        scatter, and bitwise-deterministic sums.
         """
         nb = len(self._blocks)
         deg = np.zeros(nb, dtype=np.int64)
@@ -251,8 +248,7 @@ class Program:
         state vector and by tangent size in the tangent vector, so every
         gather/scatter in the hot path is a ROW operation on a dense
         [count, size] table (jnp.take / segment_sum) instead of element
-        gathers — the single biggest TPU performance lever (element gathers
-        measured ~7x slower than row takes at BA scale)."""
+        gathers."""
         blocks = self._blocks
         nb = len(blocks)
         removed, constant, sizes, tsizes, _ = self._collect_block_arrays()
@@ -587,9 +583,8 @@ class Program:
             # j*n_seg + e). In the transposed [k, n] layout this makes the
             # owner's gathers a slice+broadcast and its reductions a
             # reshape+sum over the second-minor axis — no gather/scatter.
-            # Small classes (e.g. BA cameras) reduce via a one-hot matmul on
-            # the MXU (~9 ms for 5M rows -> 1778 blocks vs ~230 ms for XLA
-            # scatter). Everything else falls back to segment_sum.
+            # Small classes (e.g. BA cameras) reduce via a one-hot matmul.
+            # Everything else falls back to segment_sum.
             perm = None
             plans: dict = {}
             owner = -1
@@ -623,11 +618,9 @@ class Program:
                     if pos in plans or pm.t_cls < 0:
                         continue
                     cnt = self.tangent_class_counts[pm.t_cls]
-                    # One-hot matmul reductions only pay off where the
-                    # one-hot operand is fused into the MXU feed (TPU).
-                    # XLA-CPU materializes it — [5M, 1779] f64 is 71 GB —
-                    # so CPU-bound full-scale runs (e.g. the precision
-                    # gate's f64 reference) disable it via env.
+                    # XLA-CPU materializes the one-hot operand — [5M, 1779]
+                    # f64 is 71 GB — so CPU-bound full-scale runs (e.g. an
+                    # f64 reference on the host) disable it via env.
                     if cnt + 1 <= self.ONEHOT_MAX_COLS and not env_flag(
                         "CERES_TPU_NO_ONEHOT"
                     ):
@@ -695,8 +688,7 @@ class Program:
         """Shard-aware row layout: per group, a permutation into shard-major
         lanes where each shard's local slice follows its OWN interleaved
         bucket order, so the scatter-free bucket plans survive sharding
-        (otherwise multi-chip reductions fall back to XLA scatter, ~230 ms
-        for 5M rows -> 1M segments).
+        (otherwise multi-device reductions fall back to segment_sum).
 
         For each owner bucket (n_seg entities of degree d), entities split
         into ndev contiguous runs of per_e = ceil(n_seg/ndev); shard s owns
@@ -829,7 +821,7 @@ class Program:
         iteration minimizer's own ordering, reference
         inner_iteration_ordering / coordinate_descent_minimizer.cc:88-150).
 
-        TPU-native replacement of the reference's greedy maximal independent
+        Replacement of the reference's greedy maximal independent
         set ordering (parameter_block_ordering.cc:used via
         graph_algorithms.h IndependentSetOrdering): each residual row elects
         the lowest-degree block it touches as its winner; a block is an

@@ -22,7 +22,7 @@ in the 2x2 eigenbasis of B — the same stationarity system the quartic
 encodes, restricted to the PD branch that contains the constrained
 minimum. A bracketed bisection ([0, |g|/r] provably contains y*) run for a
 fixed 80 iterations resolves y* to f64 machine precision inside jit — no
-complex eigendecomposition needed, so the step stays TPU-compilable.
+complex eigendecomposition needed, so the step stays jit-compilable on any backend.
 
 Gauss-Newton reuse: the GN point does not depend on the radius, so the
 strategy exposes `prepare` (GN + Cauchy data, reusable while the Jacobian

@@ -91,7 +91,7 @@ def eligible(program, options, evaluator, raw_step_fn) -> bool:
     # bounds and the trust-region Armijo polish run fused: the active-set
     # column masking, projected gradient norms, and the projected line
     # search are all in-graph (see make_chunk_fn) — bounded BA keeps the
-    # headline fused path (VERDICT r3 #8).
+    # headline fused path.
     from ..types import PreconditionerType
 
     # sharded + visibility clustering runs the host loop on the GLOBAL
@@ -270,7 +270,7 @@ def make_chunk_fn(program, options, step_fn, sharded_evaluator=None):
             if use_split:
                 # prepare/finish split: the J-dependent grams in c["pcache"]
                 # are valid while steps are rejected; finish applies only
-                # the dsq-dependent work (VERDICT r3 #6)
+                # the dsq-dependent work
                 delta, mcc, lin_iters, valid = step_fn.finish(
                     jac, list(c["res"]), c["grad"], c["radius"], iter_scale,
                     c["pcache"],
@@ -492,9 +492,8 @@ def make_chunk_fn(program, options, step_fn, sharded_evaluator=None):
             pcache=pcache,
         )
         final = jax.lax.while_loop(cond, body, init)
-        # every host-facing number in ONE flat array: each separate scalar
-        # fetch costs a full relay round trip (~25 ms on this platform),
-        # which at chunk=1 was ~100 ms/iteration of pure fetch latency
+        # every host-facing number in ONE flat array: one device-to-host
+        # fetch per chunk instead of one per scalar
         final["packed"] = jnp.concatenate(
             [
                 jnp.stack(

@@ -4,7 +4,7 @@ reference: coordinate_descent_minimizer.cc (273 LoC) — after each accepted
 trust-region step, Ceres re-optimizes each parameter block of an
 independent set with all other blocks fixed.
 
-TPU-native design: the independent set is the Schur e-block partition (no
+Design: the independent set is the Schur e-block partition (no
 two e-blocks share a residual), so all per-block subproblems are solved
 SIMULTANEOUSLY as batched damped Gauss-Newton sweeps:
 
@@ -14,7 +14,7 @@ SIMULTANEOUSLY as batched damped Gauss-Newton sweeps:
     update:           plus() on the e-entries of the tangent vector
 
 This replaces the reference's threaded per-block LM loops with one
-MXU-shaped batched kernel; a host-level cost guard keeps the refinement
+batched device kernel; a host-level cost guard keeps the refinement
 monotonic (the reference's per-block solves are monotone by construction).
 """
 

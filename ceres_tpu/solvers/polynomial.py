@@ -9,7 +9,7 @@ derivative inside the interval (MinimizePolynomial, polynomial.cc:200-260,
 which finds roots via the companion-matrix eigensolve in
 FindPolynomialRoots). This is a fresh NumPy implementation of the same
 contract: host-side scalar work on a handful of coefficients — there is
-nothing for the TPU to do here, the device only evaluates phi/phi'.
+nothing for the device to do here, the device only evaluates phi/phi'.
 
 Polynomials use the np.polyval convention: coeffs[0] is the highest-degree
 coefficient.

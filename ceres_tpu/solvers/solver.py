@@ -10,6 +10,7 @@ import time
 import numpy as np
 
 from ..evaluator import Evaluator
+from ..utils.dtypes import full_f32_matmuls
 from ..types import (
     LinearSolverType,
     MinimizerType,
@@ -18,6 +19,7 @@ from ..types import (
 )
 
 
+@full_f32_matmuls
 def solve(options, problem) -> Summary:
     from ..utils.execution_summary import ExecutionSummary
 
@@ -123,8 +125,7 @@ def solve(options, problem) -> Summary:
     ):
         # the SUBSET apply is a host sparse triangular solve
         # (pure_callback); it cannot run inside the sharded step's
-        # shard_map. Downgrade loudly instead of failing deep in the solve
-        # (round-4 verdict missing#2).
+        # shard_map. Downgrade loudly instead of failing deep in the solve.
         import copy
         import logging
 

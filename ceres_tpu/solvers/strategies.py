@@ -2,7 +2,7 @@
 fused with the linear solver into one jitted device function.
 
 reference: levenberg_marquardt_strategy.cc:68-172 + linear_solver.cc dispatch.
-TPU design: column scaling, LM diagonal, the linear solve, and the model-cost
+Design: column scaling, LM diagonal, the linear solve, and the model-cost
 bookkeeping are one compiled graph; the host only sees scalars (radius in,
 step validity / model cost change out) — per SURVEY.md §7 "host-side control
 loop latency".
@@ -175,7 +175,7 @@ def make_lm_step_fn(program, options, evaluator):
         # split-dispatch twins (SolverOptions.split_step_dispatch): the
         # host loop issues rhs/preconditioner and PCG/back-substitution as
         # SEPARATE device programs — at BAL-13682 scale the combined
-        # executable's workspace exceeds one chip's HBM.
+        # executable's workspace can exceed a small device's memory.
         def finish_stage1(jac, res_groups, grad, radius, scale, cache):
             jac_s = jac.scale_columns(scale)
             grad_s = grad * scale

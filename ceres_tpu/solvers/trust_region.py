@@ -3,7 +3,7 @@
 Behavioural parity with the reference TrustRegionMinimizer
 (trust_region_minimizer.cc:66-836): LM/dogleg strategies, Jacobi scaling,
 non-monotonic step acceptance, invalid-step retry, and the full set of
-convergence tests. TPU design: every per-iteration tensor computation
+convergence tests. Design: every per-iteration tensor computation
 (evaluate, step solve, plus, candidate cost) is a jitted device function;
 the Python loop only moves scalars (cost, rho, radius), so parameters and
 Jacobians never leave the device — removing the reference's per-iteration

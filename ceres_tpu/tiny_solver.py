@@ -1,7 +1,7 @@
 """TinySolver: self-contained dense LM for small fixed-size problems,
 fully compiled as one lax.while_loop (zero host round-trips).
 
-reference: tiny_solver.h (400 LoC header-only dense LM). The TPU twist:
+reference: tiny_solver.h (400 LoC header-only dense LM). The twist:
 because the whole solve is one jitted graph, it vmaps — `tiny_solve_batched`
 solves thousands of independent small problems in parallel, a capability the
 reference does not have (and the seed of the fully-on-device solve path).
@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from .autodiff import value_and_jacobians
+from .utils.dtypes import full_f32_matmuls
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +40,7 @@ def _lm_state(x, cost, radius, it, done):
     return (x, cost, radius, it, done)
 
 
+@full_f32_matmuls
 @partial(jax.jit, static_argnums=(0, 2))
 def tiny_solve(residual_fn: Callable, x0, options: TinySolverOptions = TinySolverOptions()):
     """Minimize 0.5 |r(x)|^2 for a single small dense problem.
@@ -109,6 +111,7 @@ def tiny_solve(residual_fn: Callable, x0, options: TinySolverOptions = TinySolve
     return TinySolverResult(x=x, cost=cost, iterations=it, converged=done)
 
 
+@full_f32_matmuls
 def tiny_solve_batched(residual_fn, x0_batch, options: TinySolverOptions = TinySolverOptions()):
     """vmap of tiny_solve over a batch of problems: x0_batch [n, p];
     residual_fn maps [p] -> [r]."""

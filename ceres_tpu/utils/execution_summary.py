@@ -6,7 +6,7 @@ which accumulate cumulative call counts and seconds per call-site name
 program_evaluator.h:140-144) and surface them through
 Evaluator::Statistics() into Summary::FullReport.
 
-TPU nuance: inside the device-fused LM loop (solvers/fused_loop.py) the
+Nuance: inside the device-fused LM loop (solvers/fused_loop.py) the
 individual residual/Jacobian/linear-solve timings cannot be separated —
 one chunk is ONE device program; XLA has no clock op. Counts are exact
 everywhere; seconds are exact per recorded name. Fused chunks therefore

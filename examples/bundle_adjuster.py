@@ -137,9 +137,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from ceres_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if not args.mixed_precision:
         jax.config.update("jax_enable_x64", True)
 

@@ -8,7 +8,7 @@
  * ceres_problem_add_residual_block / ceres_solve end to end.
  *
  * Build: `make curve_fitting_c` in native/ (links libceres_tpu_c_api.so,
- * which embeds Python and drives the TPU-native solver).
+ * which embeds Python and drives the solver).
  */
 
 #include <math.h>

@@ -7,7 +7,7 @@
 //          double** jacobians)
 // and ceres_solve with default options.
 //
-// TPU-native shape: this shim embeds CPython and forwards every call to
+// Shape: this shim embeds CPython and forwards every call to
 // ceres_tpu.capi (ceres_tpu/capi.py), which adopts the caller's parameter
 // memory in place and routes the callback's analytic jacobians into the
 // normal device pipeline. Build: `make c_api` in native/.
@@ -51,10 +51,6 @@ static void fail(const char* what) {
 void ceres_init(void) {
   if (g_capi_module != nullptr) return;
   if (!Py_IsInitialized()) {
-    // Mark the embedding before interpreter start so ceres_tpu.capi can
-    // pick a platform that supports host callbacks (the C cost/loss
-    // callbacks run on the host; see capi.py).
-    setenv("CERES_TPU_C_API", "1", 0);
     Py_InitializeEx(0);
     g_we_initialized_python = 1;
   }

@@ -1,4 +1,4 @@
-"""Bounded problems on the fused device loop (VERDICT r3 #8).
+"""Bounded problems on the fused device loop.
 
 The reference clamps bounds in PlusWithBoundsClamping and runs a projected
 line search when constrained (trust_region_minimizer.cc:101-106,462-502);

@@ -66,7 +66,7 @@ def test_chunk1_gives_unamortized_iteration_times():
 
 
 def test_tr_line_search_accelerates_rosenbrock():
-    """VERDICT #6 done-criterion: the Armijo polish on valid steps
+    """The Armijo polish on valid steps
     (trust_region_use_line_search) reduces the iteration count on a curved
     valley problem. Upstream gates DoLineSearch on is_constrained
     (trust_region_minimizer.cc:101-106); this option extends it to

@@ -1,7 +1,7 @@
 """Multi-host (2-process) parity test, CPU emulation.
 
 SURVEY.md §4:537-539: "Multi-host tests can run on a single host with
-jax.distributed multi-process CPU/TPU emulation — a capability the
+jax.distributed multi-process CPU emulation — a capability the
 reference never needed." Two worker processes x 4 virtual CPU devices each
 join one jax.distributed runtime, load the SAME BAL file host-locally
 (lazy payload), and run the sharded fused ITERATIVE_SCHUR solve over the

@@ -1,8 +1,8 @@
-"""Precision gate: the f32 fast path (the TPU production configuration)
+"""Precision gate: the f32 fast path (the device production configuration)
 must reach final-cost parity with an f64 solve of the same problem.
 
 BASELINE.json acceptance: "final cost gap vs reference Ceres within its
-function tolerance" — the reference is f64 end-to-end (jet.h); our TPU
+function tolerance" — the reference is f64 end-to-end (jet.h); our device
 path evaluates in f32 (optionally bf16 matvecs). This test solves one
 BA-structured problem (Snavely 9+3 blocks, ITERATIVE_SCHUR+SCHUR_JACOBI,
 the benchmark configuration) in both dtypes on CPU and gates the relative

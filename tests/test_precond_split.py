@@ -1,4 +1,4 @@
-"""Preconditioner prepare/finish split (VERDICT r3 #6).
+"""Preconditioner prepare/finish split.
 
 reference: iterative_schur_complement_solver.cc:95-153 separates
 Preconditioner::Update from creation; the split here goes further and

@@ -1,7 +1,7 @@
 """Differential tests of the Problem/Program/Evaluator stack.
 
 Strategy mirrors the reference's CPU-vs-GPU differential tests
-(evaluator_cuda_test.cu.cc): the batched, signature-grouped TPU evaluation
+(evaluator_cuda_test.cu.cc): the batched, signature-grouped device evaluation
 is compared against slow, trusted per-block NumPy math and finite
 differences — covering autodiff, manifold chain rule, robust-loss
 correction, constant blocks, and gradient scatter.

@@ -1,13 +1,13 @@
-"""Shared mini-BA fixture for the on-TPU differential tier.
+"""Shared mini-BA fixture for the on-card differential tier.
 
 Mirrors the composition of the reference's CUDA differential test problem
-(/root/reference/internal/ceres/evaluator_cuda_test.cu.cc:426-456): one
+(reference: internal/ceres/evaluator_cuda_test.cu.cc:426-456): one
 problem combining a quaternion-manifold camera block, a constant block,
 robust losses (Huber + Cauchy), and three distinct functor types — then the
-SAME problem is evaluated on the TPU in f32 and on the CPU in f64 and the
+SAME problem is evaluated on the card in f32 and on the CPU in f64 and the
 outputs must agree at scale-aware tolerances.
 
-Importable from both the TPU test process and the CPU-f64 reference
+Importable from both the card test process and the CPU-f64 reference
 subprocess so the two sides build bit-identical programs.
 """
 

@@ -1,21 +1,19 @@
-"""On-TPU differential mini-suite (round-3 verdict #5).
+"""On-card differential mini-suite.
 
 The reference's core CUDA test strategy is on-device differential testing:
 the same problem is pushed through the CPU and CUDA evaluators and every
-output must match (/root/reference/internal/ceres/evaluator_cuda_test.cu.cc:426-461,
-jet_cuda_test.cu.cc). This file is that strategy on the real chip:
+output must match (reference: internal/ceres/evaluator_cuda_test.cu.cc:426-461,
+jet_cuda_test.cu.cc). This file is that strategy on the card:
 
 1. mini-BA (quaternion manifold, constant block, Huber + Cauchy, three
-   functor types) evaluated on TPU f32 vs CPU f64 — cost, residuals,
+   functor types) evaluated on the card in f32 vs CPU f64 — cost, residuals,
    gradient, AND the dense Jacobian, at scale-aware tolerances;
 2. a fused-loop chunk vs the host trust-region loop (same chip, same
    dtype) — catches fused-path-only regressions;
 3. one sharded evaluation step through shard_map on the device mesh —
-   catches TPU-only sharding lowerings (round 4 found a vma-inference
-   failure only this combination exposes).
+   catches sharding lowerings that only the device backend exposes.
 
-Budget: shares the module-scoped fixture; cached runs complete in well
-under the driver's 2-minute TPU budget.
+The three share one module-scoped fixture.
 """
 
 import os
@@ -28,11 +26,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+pytestmark = pytest.mark.chip
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from ceres_tpu.evaluator import evaluate  # noqa: E402
-from tests_tpu._mini_ba import build_mini_ba  # noqa: E402
+from tests_chip._mini_ba import build_mini_ba  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ jax.config.update("jax_enable_x64", True)
 import sys
 sys.path.insert(0, {REPO!r})
 import numpy as np
-from tests_tpu._mini_ba import build_mini_ba
+from tests_chip._mini_ba import build_mini_ba
 problem = build_mini_ba()
 program = problem.compile()
 ev = program.evaluator()
@@ -96,7 +96,7 @@ def test_mini_ba_jacobian_vs_f64(mini):
     """Dense-Jacobian agreement — every entry of every functor's block,
     through manifold chain rule, loss correction, and constant-block
     masking (the reference gates at 1e-14 in f64-vs-f64;
-    evaluator_cuda_test.cu.cc:446-456 — here the TPU side is f32 so the
+    evaluator_cuda_test.cu.cc:446-456 — here the card side is f32 so the
     gate is scale-aware)."""
     program, arrays, state, ref = mini
     f = jax.jit(lambda a, s: evaluate(program, a, s, with_jacobian=True))
@@ -148,8 +148,8 @@ def test_fused_chunk_matches_host_loop_on_chip():
 
 def test_sharded_step_on_chip():
     """ShardedEvaluator through shard_map on the device mesh (all real
-    chips present) vs the unsharded evaluator — exercises the TPU-only
-    shard_map + Pallas lowering combination."""
+    chips present) vs the unsharded evaluator — exercises the device
+    shard_map lowering."""
     from jax.sharding import Mesh
 
     from ceres_tpu.evaluator import Evaluator
